@@ -1,6 +1,6 @@
 // Native binned-SAH BVH2 builder emitting the compact threaded node arrays.
 //
-// The TPU framework's equivalent of the reference's Embree-driven BVH
+// The framework's equivalent of the reference's Embree-driven BVH
 // build + flatten step (host-side, C++ for speed on large scenes). The
 // algorithm and output encoding match ipu_ray_lib_tpu/bvh/builder.py
 // exactly (binned SAH, 16 bins, first-child-adjacent flatten with miss

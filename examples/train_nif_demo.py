@@ -23,11 +23,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("IPU_RAY_TPU_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 
 def synthetic_hdri(h=128, w=256):
     """Gradient sky + warm sun disc, HDR range."""

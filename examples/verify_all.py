@@ -13,6 +13,7 @@ streams differ):
   4. Collada scene load + render smoke.
 
 Usage: python examples/verify_all.py [--size 96] [--spp 16]
+(on the CPU: JAX_PLATFORMS=cpu python examples/verify_all.py ...)
 """
 
 from __future__ import annotations
@@ -26,23 +27,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("IPU_RAY_TPU_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=96)
     ap.add_argument("--spp", type=int, default=16)
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     args = ap.parse_args()
-
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     import dataclasses
 
@@ -107,20 +97,18 @@ def main():
 
     # ---- 2b. Cross-intersector radiometry --------------------------------
     # Same RNG streams + same estimator through two INDEPENDENT
-    # intersection implementations (megakernel payload path vs dense-MXU
-    # tables): images must agree per pixel, not just in distribution.
-    # This is the check that caught the payload-leakage radiometry bug
-    # (PROGRESS.md finding 30):
+    # intersection implementations (threaded BVH vs dense block tables):
+    # images must agree per pixel, not just in distribution.
     from ipu_ray_lib_tpu.render.streaming import render_streaming
 
     imgs = {}
-    for its in ("pallas", "dense"):
+    for its in ("bvh", "dense"):
         ai, pi, _ = build_scene(scene, image_width=size, image_height=size,
                                 samples_per_pixel=spp, intersector=its)
         imgs[its], _done = render_streaming(ai, pi, spp=spp)
-    dmax = np.abs(imgs["pallas"] - imgs["dense"]).max(axis=-1)
-    print(f"## Cross-intersector (pallas vs dense): mean "
-          f"{imgs['pallas'].mean():.5f} vs {imgs['dense'].mean():.5f}, "
+    dmax = np.abs(imgs["bvh"] - imgs["dense"]).max(axis=-1)
+    print(f"## Cross-intersector (bvh vs dense): mean "
+          f"{imgs['bvh'].mean():.5f} vs {imgs['dense'].mean():.5f}, "
           f"q99 pixel diff {np.quantile(dmax, 0.99):.2e}")
 
     # ---- 3. Collada import + render smoke --------------------------------

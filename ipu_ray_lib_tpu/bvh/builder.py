@@ -2,7 +2,7 @@
 
 Fills the role of the reference's Embree-callback BVH build and
 flattening pass (ref: include/embree_utils/bvh.hpp:27-126,
-src/CompactBvhBuild.cpp:6-56), re-designed for the TPU runtime:
+src/CompactBvhBuild.cpp:6-56), re-designed for batched traversal:
 
 * Built here with a binned-SAH builder (numpy; optional C++ fast path in
   :mod:`ipu_ray_lib_tpu.bvh.cbuilder`) — no Embree dependency.
@@ -10,7 +10,7 @@ src/CompactBvhBuild.cpp:6-56), re-designed for the TPU runtime:
   second-child index, exactly like the reference's compact node array —
   *plus* a per-node **miss link**, which converts the array into a
   threaded ("stackless") BVH: traversal needs no per-ray stack, giving
-  uniform control flow that maps onto TPU vector lanes.
+  uniform control flow across a batch of rays.
 * Box extents are stored fp16, conservatively rounded up so boxes never
   shrink (ref: include/CompactBVH2Node.hpp:69-71); build raises if an
   extent exceeds fp16 max (65504), matching src/CompactBvhBuild.cpp:15-18.
@@ -73,8 +73,8 @@ def build_bvh(
 
     ``max_leaf_size=1`` matches the reference build configuration
     (ref: include/embree_utils/bvh.hpp:47-60: branching factor 2,
-    maxLeafSize 1, SAH). Larger leaves are supported for TPU-tuned
-    builds where dense leaf testing is cheaper than traversal steps.
+    maxLeafSize 1, SAH). Larger leaves are supported for builds where
+    dense leaf testing is cheaper than traversal steps.
     """
     try:
         from .cbuilder import build_bvh_native

@@ -2,10 +2,12 @@
 
 The native builder (csrc/bvh_builder.cpp) implements the identical
 algorithm and node encoding as :func:`ipu_ray_lib_tpu.bvh.builder.build_bvh_python`
-but runs orders of magnitude faster on large scenes. It is compiled on
-demand with the system toolchain (``make -C csrc``); if the shared
-library is missing and cannot be built, callers transparently fall back
-to the Python builder.
+but runs orders of magnitude faster on large scenes. It is built from
+the committed sources with the system toolchain (``make -C csrc``) at
+first use in each process; make rebuilds the library whenever a source
+is newer, so a stale library is never loaded. If it cannot be built,
+callers fall back to the Python builder (:func:`native_available` says
+which one runs).
 """
 
 from __future__ import annotations
@@ -31,14 +33,14 @@ def _load():
         _tried = True
         here = os.path.dirname(__file__)
         so = os.path.join(here, _LIB_NAME)
-        if not os.path.exists(so):
-            csrc = os.path.join(here, "..", "..", "csrc")
+        csrc = os.path.join(here, "..", "..", "csrc")
+        if os.path.isdir(csrc):
             try:
                 subprocess.run(
                     ["make", "-C", csrc], check=True,
                     stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
                 )
-            except Exception:
+            except (OSError, subprocess.CalledProcessError):
                 return None
         if not os.path.exists(so):
             return None
@@ -65,6 +67,11 @@ def _load():
         ]
         _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the native builder loads (building it if needed)."""
+    return _load() is not None
 
 
 def build_bvh_native(prim_lo, prim_hi, geom_ids, prim_ids, max_leaf_size=1):

@@ -2,7 +2,7 @@
 
 Plays the role Embree plays in the reference's verification methodology
 (ref: trace.cpp:7-113, README.md:31-34): an *algorithmically independent*
-renderer the JAX/TPU pipeline is compared against. Differences from the
+renderer the JAX pipeline is compared against. Differences from the
 production path are deliberate:
 
 * No BVH — every ray is tested against every primitive (O(R*P)).
@@ -143,12 +143,12 @@ def oracle_intersect(scene: SceneDescription, origins: np.ndarray, dirs: np.ndar
 # ---------------------------------------------------------------------------
 # BVH-accelerated oracle: the same f64 Moller-Trumbore ground truth at
 # hundreds of thousands of triangles (the brute-force form above is
-# O(R*P) and impractical past ~10k prims — VERDICT r2 weak #5). The BVH
+# O(R*P) and impractical past ~10k prims). The BVH
 # *structure* is reused from bvh/builder.py (as the reference reuses
 # Embree's build for its own flatten, app_utils.cpp:344-361), but the
 # traversal below is an independent vectorised-over-rays numpy stepper
 # and every primitive test stays the f64 brute-force code above in
-# single-triangle form — the production Pallas/dense kernels share no
+# single-triangle form — the production bvh/dense intersectors share no
 # algorithm with it.
 # ---------------------------------------------------------------------------
 class _OracleBvh:

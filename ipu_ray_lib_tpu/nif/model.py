@@ -1,4 +1,4 @@
-"""Neural Image Field (NIF) environment light — JAX/MXU implementation.
+"""Neural Image Field (NIF) environment light — JAX implementation.
 
 The reference evaluates a small Fourier-feature MLP on-device for escaped
 rays to light them from an HDRI (ref: src/neural_networks/NifModel.cpp,
@@ -14,11 +14,11 @@ src/IpuScene.cpp:506-537). Behavioural contract reproduced here:
 * output decode: x*max + mean, exp when log-tone-mapped, channels BGR
   (ref NifModel.cpp:222-246; PostProcessEscapedRays reverses to RGB).
 
-TPU-first differences: the whole escaped-ray batch is one bf16 matmul
-chain on the MXU (no batch serialisation needed — ref IpuScene.cpp:266-295
-exists only because of IPU SRAM limits), and sin/cos run in f32 on the VPU
-(the reference drops to fp16 because IPU fp32 transcendentals are slow;
-on TPU f32 is native).
+Differences from the reference: the whole escaped-ray batch is one bf16
+matmul chain with f32 accumulation (no batch serialisation needed — ref
+IpuScene.cpp:266-295 exists only because of IPU SRAM limits), and sin/cos
+run in f32 (the reference drops to fp16 because IPU fp32 transcendentals
+are slow).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from ..utils.constants import INV_2PI, INV_PI, TWO_PI
-from .hdf5 import NifWeights, load_keras_h5
+from .hdf5 import NifWeights, load_keras_h5, load_nif_npz
 from .metadata import NifMetadata
 
 
@@ -168,20 +168,27 @@ class NifModel:
 
 def load_nif_env(assets_dir: str, rotation_degrees: float = 0.0):
     """Load a NIF from an assets.extra-style directory and return
-    ``(env_fn, env_params)`` for the renderer: env_fn(params, dirs)->rgb."""
+    ``(env_fn, env_params)`` for the renderer: env_fn(params, dirs)->rgb.
+
+    Weights come from ``weights.npz`` when the directory has one (NumPy
+    only); a directory with nothing but a Keras .h5 is read through h5py."""
     meta_path = os.path.join(assets_dir, "nif_metadata.txt")
     meta = NifMetadata.load(meta_path)
-    h5 = None
-    for cand in sorted(os.listdir(assets_dir)):
-        if cand.endswith(".h5"):
-            h5 = os.path.join(assets_dir, cand)
-    if h5 is None:
-        raise FileNotFoundError(
-            f"No .h5 weights found in '{assets_dir}'. Convert/save the Keras "
-            "model to a single .h5 (see ipu_ray_lib_tpu.nif.hdf5.save_keras_h5 "
-            "or train one with ipu_ray_lib_tpu.nif.train)."
-        )
-    model = NifModel.from_weights(load_keras_h5(h5), meta)
+    npz = os.path.join(assets_dir, "weights.npz")
+    if os.path.exists(npz):
+        weights = load_nif_npz(npz)
+    else:
+        h5 = None
+        for cand in sorted(os.listdir(assets_dir)):
+            if cand.endswith(".h5"):
+                h5 = os.path.join(assets_dir, cand)
+        if h5 is None:
+            raise FileNotFoundError(
+                f"No weights.npz or .h5 weights found in '{assets_dir}'. "
+                "Save the model with ipu_ray_lib_tpu.nif.train.save_nif_assets "
+                "or train one with ipu_ray_lib_tpu.nif.train.")
+        weights = load_keras_h5(h5)
+    model = NifModel.from_weights(weights, meta)
     params = dict(model.params)
     params["rotation"] = jnp.float32(np.deg2rad(rotation_degrees))
     config = model.config
@@ -189,7 +196,4 @@ def load_nif_env(assets_dir: str, rotation_degrees: float = 0.0):
     def env_fn(env_params, dirs):
         return NifModel.env_radiance(config, env_params, dirs)
 
-    # Expose the static structure so integrators that can fuse the MLP
-    # in-kernel (ops/pallas/megakernel.py pack_env_mlp) can do so:
-    env_fn.nif_config = config
     return env_fn, params

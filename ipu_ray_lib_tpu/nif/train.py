@@ -1,4 +1,4 @@
-"""NIF training: fit the Fourier-feature MLP to an HDRI, on TPU.
+"""NIF training: fit the Fourier-feature MLP to an HDRI.
 
 The reference ships only trained assets (its train_nif.py lives outside
 the repo; src/keras/model_to_hdf5.py converts its output). Here training
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from .hdf5 import DenseLayer, NifWeights, save_keras_h5
+from .hdf5 import DenseLayer, NifWeights, save_keras_h5, save_nif_npz
 from .metadata import NifMetadata
 from .model import NifConfig, NifModel
 
@@ -168,7 +168,8 @@ def train_nif(
 
 def save_nif_assets(model: NifModel, meta: NifMetadata, out_dir: str,
                     fp16: bool = True) -> None:
-    """Write an assets.extra-style directory (nif_metadata.txt + model .h5)."""
+    """Write an assets.extra-style directory: nif_metadata.txt, the Keras
+    model.h5 and its NumPy twin weights.npz."""
     os.makedirs(out_dir, exist_ok=True)
     meta.save(
         os.path.join(out_dir, "nif_metadata.txt"),
@@ -189,8 +190,7 @@ def save_nif_assets(model: NifModel, meta: NifMetadata, out_dir: str,
                 dtype=str(np.dtype(dtype)),
             )
         )
-    save_keras_h5(
-        os.path.join(out_dir, "model.h5"),
-        NifWeights(layers=layers),
-        meta.embedding_dimension,
-    )
+    weights = NifWeights(layers=layers)
+    save_nif_npz(os.path.join(out_dir, "weights.npz"), weights)
+    save_keras_h5(os.path.join(out_dir, "model.h5"), weights,
+                  meta.embedding_dimension)

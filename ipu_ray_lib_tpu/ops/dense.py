@@ -1,10 +1,9 @@
-"""Dense MXU intersector: ray x primitive tests as chunked matmuls.
+"""Dense intersector: ray x primitive tests as chunked matmuls.
 
-A TPU-first alternative to BVH traversal for scenes in the size class the
+An alternative to BVH traversal for scenes in the size class the
 reference targets (its whole scene must fit in one IPU tile's SRAM —
-README.md:51 — i.e. thousands of primitives, not millions). On a TPU the
-systolic array turns brute force into the *fast* path: expressing the
-ray/triangle test as `[R,3] @ [3,T]` contractions gives
+README.md:51 — i.e. thousands of primitives, not millions). Expressing
+the ray/triangle test as `[R,3] @ [3,T]` contractions gives
 
     t  = (n.p0 - n.o) / (n.d)
     b1 = (o.g1 + t * d.g1) - g1.p0      (barycentric via precomputed
@@ -12,9 +11,9 @@ ray/triangle test as `[R,3] @ [3,T]` contractions gives
 
 six matmuls + elementwise work per (ray, triangle) block, with a running
 closest-hit min over triangle blocks — fully dense, no gathers, no
-divergence, ~50 flops per pair on the MXU/VPU. At v5e matmul rates this
-sustains hundreds of millions of ray-triangle-block tests per second,
-far above what divergent traversal reaches on a vector machine.
+divergence, ~50 flops per pair. Its cost grows with the triangle count,
+so scene build selects it only for small scenes (scene/build.py
+``AUTO_DENSE_MAX_PRIMS``).
 
 Triangle normals are stored *normalised* so the plane-distance
 subtraction (n.p0 - n.o) stays in world units and f32 cancellation error
@@ -118,10 +117,11 @@ def _tri_block_best(dt: DenseTables, blk: int, origins, dirs, t_min, best):
     g2p0 = jax.lax.dynamic_slice_in_dim(dt.g2p0, blk * TRI_BLOCK, TRI_BLOCK, 0)
 
     best_t, best_tri = best
-    # Ray geometry must be exact f32: TPU dot_general at DEFAULT precision
-    # rounds operands through bf16 (~0.4% rel) — multi-unit hit-point
-    # errors, shadow acne, energy bias (PROGRESS.md finding 14). This is
-    # XLA (not Mosaic), so Precision.HIGHEST costs only the 3-pass split:
+    # Ray geometry must be exact f32. At DEFAULT precision a float32 dot
+    # may run on the GPU's tensor cores in TF32 (10-bit mantissa, ~1e-3
+    # relative): at scene scales of hundreds of units that is a
+    # multi-unit hit-point error — shadow acne, self-hits past the
+    # offset, energy bias. Precision.HIGHEST keeps full f32:
     HI = jax.lax.Precision.HIGHEST
     dn = jnp.dot(dirs, tn.T, preferred_element_type=jnp.float32, precision=HI)
     on = jnp.dot(origins, tn.T, preferred_element_type=jnp.float32, precision=HI)

@@ -15,7 +15,7 @@ Numerical conventions carried over deliberately:
   NaNs arising from inf*0 in the slab test resolve exactly like the
   C-ternary forms in the reference (NaN comparisons are false).
 * The triangle test uses the full PBRT error-bound rejection (t <= deltaT)
-  in f32 only; there is no double-precision fallback on TPU (the
+  in f32 only; there is no double-precision fallback here (the
   reference's default build also disables it: CMakeLists.txt:13).
 
 One deliberate divergence: the reference's ``Vec3fa::maxi()`` contains
@@ -134,7 +134,7 @@ def intersect_triangle_watertight(
     # strict sign (tests/test_watertight.py caught 120/1684 such rays).
     # The reference resolves exact zeros in double behind
     # ALLOW_DOUBLE_FALLBACK (ref src/Mesh.cpp:38-51, README.md:109-120);
-    # with no f64 on TPU, widening by the delta_e bound is the
+    # with no f64 in the hot path, widening by the delta_e bound is the
     # conservative f32 analogue — near-boundary rays accept in at least
     # one (possibly several, benign for closest-hit) incident triangle:
     max_xt0 = jnp.maximum(jnp.maximum(jnp.abs(p0x), jnp.abs(p1x)),

@@ -2,7 +2,7 @@
 
 The reference leans on the IPU's hardware RNG (`__builtin_ipu_urand`),
 whose contract is simply "independent uniforms per worker, cheap".
-The TPU equivalent here is a stateless counter-based generator: a few
+The equivalent here is a stateless counter-based generator: a few
 rounds of integer mixing over (stream, counter, dim) produce uniforms
 vectorised over lanes with no key bookkeeping. Like the reference's
 CPU-vs-IPU situation, different renderers agree in distribution, not

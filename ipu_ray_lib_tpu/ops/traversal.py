@@ -1,8 +1,8 @@
 """Stackless threaded-BVH traversal, batched over rays.
 
-TPU-first redesign of the reference's per-ray stack traversal
+Batched redesign of the reference's per-ray stack traversal
 (ref: include/CompactBvh.hpp:33-139). An IPU runs an independent scalar
-program per ray, so a traversal stack per ray is natural there. On TPU we
+program per ray, so a traversal stack per ray is natural there. Here we
 instead thread the flattened node array with *miss links* at build time
 (:mod:`ipu_ray_lib_tpu.bvh.builder`), which reduces traversal to a single
 uniform loop over all rays in a batch:
@@ -10,8 +10,8 @@ uniform loop over all rays in a batch:
     next = box_hit & inner ? current + 1 : miss_link[current]
 
 Every ray advances in lockstep under one ``lax.while_loop``; finished rays
-park on a sentinel. Per step the node fetch is a batched gather — an
-HBM/VMEM-bandwidth-bound operation XLA handles well for large ray batches.
+park on a sentinel. Per step the node fetch is a batched gather — a
+memory-bound operation XLA handles well for large ray batches.
 The closest-hit metric and hit-acceptance conditions (strict
 ``t > t_min``, ``t < closest``) match the reference exactly, so AOVs are
 comparable bit-for-bit modulo visit order.
@@ -204,7 +204,7 @@ def dense_intersect(
     t_min: jnp.ndarray,
     t_max: jnp.ndarray,
 ) -> Hit:
-    """Closest-hit via the MXU dense intersector (ops/dense.py): triangles
+    """Closest-hit via the dense intersector (ops/dense.py): triangles
     as chunked matmuls, spheres/discs broadcast-dense, running min."""
     from .dense import dense_closest_tri, dense_discs, dense_spheres
 
@@ -236,182 +236,21 @@ def dense_intersect(
     )
 
 
-def _pallas_tri_intersect(scene, origin, direction, t_min, t_max, hbm):
-    """Triangle closest-hit through the VMEM-resident kernel, or the
-    HBM-streamed kernel for scenes beyond VMEM (ops/pallas/intersect_hbm)."""
-    import jax as _jax
-
-    interpret = _jax.default_backend() != "tpu"
-    if hbm:
-        from .pallas.intersect_hbm import pallas_intersect_hbm
-
-        return pallas_intersect_hbm(
-            scene.blocked, origin, direction, t_min, t_max,
-            interpret=interpret,
-        )
-    from .pallas.intersect_kernel import pallas_intersect
-
-    return pallas_intersect(
-        scene.blocked, origin, direction, t_min, t_max, interpret=interpret
-    )
-
-
-def pallas_scene_intersect(scene, origin, direction, t_min, t_max,
-                           with_normal: bool = False, hbm: bool = False):
-    """Closest-hit via the Pallas blocked kernel (triangles) + dense
-    sphere/disc tests. Falls back to interpreter mode off-TPU.
-    With ``with_normal`` returns (Hit, normal [R,3]) using the kernel's
-    densely-selected shading normals (no per-lane gathers)."""
-    from .dense import dense_discs, dense_spheres
-
-    best_t, tri, knormal, _payload = _pallas_tri_intersect(
-        scene, origin, direction, t_min, t_max, hbm
-    )
-    tri_safe = jnp.clip(tri, 0, scene.blocked.tri_geom.shape[0] - 1)
-    geom = jnp.where(tri >= 0, scene.blocked.tri_geom[tri_safe], INVALID_GEOM_ID)
-    prim = jnp.where(tri >= 0, scene.blocked.tri_prim[tri_safe], INVALID_PRIM_ID)
-
-    sb, st, si = dense_spheres(scene.spheres, origin, direction, t_min, best_t)
-    geom = jnp.where(sb, scene.sphere_geom[si], geom)
-    prim = jnp.where(sb, 0, prim)
-    best_t = jnp.where(sb, st, best_t)
-
-    db, dtt, di = dense_discs(scene.discs, origin, direction, t_min, best_t)
-    geom = jnp.where(db, scene.disc_geom[di], geom)
-    prim = jnp.where(db, 0, prim)
-    best_t = jnp.where(db, dtt, best_t)
-
-    found = geom != INVALID_GEOM_ID
-    hit = Hit(
-        t=jnp.where(found, best_t, t_max),
-        geom_id=geom.astype(jnp.int32),
-        prim_id=prim.astype(jnp.int32),
-    )
-    if not with_normal:
-        return hit
-
-    # Mix kernel triangle normals with analytic sphere/disc normals:
-    hit_p = origin + direction * hit.t[..., None]
-    si = jnp.clip(jnp.where(sb, si, 0), 0, scene.spheres.shape[0] - 1)
-    sp = scene.spheres[si]
-    sphere_n = hit_p - sp[..., :3]
-    sphere_n = sphere_n / jnp.maximum(
-        jnp.linalg.norm(sphere_n, axis=-1, keepdims=True), jnp.float32(1e-30)
-    )
-    di_safe = jnp.clip(jnp.where(db, di, 0), 0, scene.discs.shape[0] - 1)
-    disc_n = scene.discs[di_safe][..., 0:3]
-    normal = jnp.where(sb[..., None], sphere_n, knormal)
-    normal = jnp.where(db[..., None], disc_n, normal)
-    default = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0], jnp.float32), normal.shape)
-    normal = jnp.where(found[..., None], normal, default)
-    return hit, normal
-
-
-def pallas_path_intersect(scene, origin, direction, t_min, t_max,
-                          hbm: bool = False):
-    """Streaming-integrator fast path: closest hit + shading normal +
-    material payload (albedo, mat_id, type, ior) straight from the
-    kernel's one-hot selection — zero per-lane gathers for triangle hits.
-    Sphere/disc hits override via their (few) analytic lanes."""
-    from .dense import dense_discs, dense_spheres
-
-    best_t, tri, knormal, payload = _pallas_tri_intersect(
-        scene, origin, direction, t_min, t_max, hbm
-    )
-    found = tri >= 0
-    albedo = payload[0:3].T                     # [R,3]
-    # Round, don't truncate: the one-hot selection runs on the MXU whose
-    # f32 accumulation can return 15.9999 for an exact 16.0:
-    mid = (
-        jnp.round(payload[3]).astype(jnp.int32) * 256
-        + jnp.round(payload[4]).astype(jnp.int32)
-    )
-    tpacked = jnp.round(payload[5]).astype(jnp.int32)
-    mtype = tpacked & 3
-    emissive = (tpacked >> 2) != 0
-    ior = payload[6]
-    emission = payload[7:10].T                  # [R,3]
-    normal = knormal
-
-    sb, st, si = dense_spheres(scene.spheres, origin, direction, t_min,
-                               jnp.where(found, best_t, t_max))
-    db, dtt, di = dense_discs(scene.discs, origin, direction, t_min,
-                              jnp.where(sb, st, jnp.where(found, best_t, t_max)))
-
-    hit_t = jnp.where(db, dtt, jnp.where(sb, st, best_t))
-    found = found | sb | db
-
-    # Sphere/disc overrides (analytic normals + material via geom gather):
-    hp = origin + direction * hit_t[..., None]
-    si_s = jnp.clip(si, 0, scene.spheres.shape[0] - 1)
-    sp = scene.spheres[si_s]
-    sn = hp - sp[..., :3]
-    sn = sn / jnp.maximum(jnp.linalg.norm(sn, axis=-1, keepdims=True), 1e-30)
-    di_s = jnp.clip(di, 0, scene.discs.shape[0] - 1)
-    dn = scene.discs[di_s][..., 0:3]
-    normal = jnp.where(sb[..., None], sn, normal)
-    normal = jnp.where(db[..., None], dn, normal)
-
-    gid_override = jnp.where(db, scene.disc_geom[di_s], scene.sphere_geom[si_s])
-    mid_o = scene.mat_id[jnp.clip(gid_override, 0, scene.mat_id.shape[0] - 1)]
-    use_o = sb | db
-    mid = jnp.where(use_o, mid_o, mid)
-    albedo = jnp.where(use_o[..., None], scene.mat_albedo[mid_o], albedo)
-    mtype = jnp.where(use_o, scene.mat_type[mid_o], mtype)
-    ior = jnp.where(use_o, scene.mat_ior[mid_o], ior)
-    emission = jnp.where(use_o[..., None], scene.mat_emission[mid_o], emission)
-    emissive = jnp.where(use_o, scene.mat_emissive[mid_o] != 0, emissive)
-
-    default_n = jnp.broadcast_to(
-        jnp.array([0.0, 0.0, 1.0], jnp.float32), normal.shape
-    )
-    normal = jnp.where(found[..., None], normal, default_n)
-    return dict(
-        t=jnp.where(found, hit_t, t_max), found=found, normal=normal,
-        albedo=albedo, mat_id=mid, mat_type=mtype, ior=ior,
-        emission=emission, emissive=emissive & found,
-    )
-
-
 def scene_intersect_with_normal(scene, origin, direction, t_min, t_max,
                                 method: str = "bvh"):
-    """Closest hit + shading normal in one call; uses in-kernel normals
-    for the pallas paths, hit_normal recomputation otherwise."""
-    if method in ("pallas", "pallas-hbm"):
-        return pallas_scene_intersect(scene, origin, direction, t_min, t_max,
-                                      with_normal=True,
-                                      hbm=method == "pallas-hbm")
+    """Closest hit + shading normal in one call."""
     hit = scene_intersect(scene, origin, direction, t_min, t_max, method)
     return hit, hit_normal(scene, origin, direction, hit)
 
 
-def _reject_bvh_on_tpu():
-    """The jnp threaded-BVH traversal (while_loop + gathers) crashes the
-    TPU runtime worker at ~131k-ray scale (PROGRESS.md finding 8) — a
-    hard process kill, not an exception. Until root-caused, selecting it
-    on TPU fails fast with the supported alternatives instead of taking
-    the whole worker down mid-render."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        raise RuntimeError(
-            "intersector 'bvh' is not supported on TPU: the while_loop "
-            "traversal crashes the TPU runtime worker at scale "
-            "(PROGRESS.md finding 8). Use 'pallas' (<=64k prims), "
-            "'pallas-hbm' (any size), or 'auto'.")
-
-
 def scene_intersect(scene, origin, direction, t_min, t_max, method: str = "bvh") -> Hit:
-    """Closest-hit dispatch: 'bvh' (threaded traversal), 'dense' (MXU
-    brute force), 'pallas' (blocked VMEM kernel), or 'pallas-hbm'
-    (HBM-streamed tables for scenes beyond VMEM)."""
+    """Closest-hit dispatch: 'bvh' (threaded traversal) or 'dense'
+    (brute force over triangle blocks)."""
     if method == "dense":
         return dense_intersect(scene, origin, direction, t_min, t_max)
-    if method in ("pallas", "pallas-hbm"):
-        return pallas_scene_intersect(scene, origin, direction, t_min, t_max,
-                                      hbm=method == "pallas-hbm")
-    _reject_bvh_on_tpu()
-    return bvh_intersect(scene, origin, direction, t_min, t_max)
+    if method == "bvh":
+        return bvh_intersect(scene, origin, direction, t_min, t_max)
+    raise ValueError(f"unknown intersector {method!r} (expected 'bvh' or 'dense')")
 
 
 def scene_occluded(scene, origin, direction, t_min, t_max, method: str = "bvh"):
@@ -419,12 +258,9 @@ def scene_occluded(scene, origin, direction, t_min, t_max, method: str = "bvh"):
     if method == "dense":
         hit = dense_intersect(scene, origin, direction, t_min, t_max)
         return hit.found & (hit.t < t_max)
-    if method in ("pallas", "pallas-hbm"):
-        hit = pallas_scene_intersect(scene, origin, direction, t_min, t_max,
-                                     hbm=method == "pallas-hbm")
-        return hit.found & (hit.t < t_max)
-    _reject_bvh_on_tpu()
-    return bvh_occluded(scene, origin, direction, t_min, t_max)
+    if method == "bvh":
+        return bvh_occluded(scene, origin, direction, t_min, t_max)
+    raise ValueError(f"unknown intersector {method!r} (expected 'bvh' or 'dense')")
 
 
 def hit_normal(

@@ -1,14 +1,15 @@
-"""Data-parallel scale-out over a TPU device mesh.
+"""Data-parallel scale-out over a device mesh.
 
 The reference scales by replicating the whole Poplar graph per IPU and
 round-robining ray batches to each replica's DRAM, with per-replica RNG
 seeds and no cross-replica collectives (ref: trace.cpp:296-307,
-src/IpuScene.cpp:648-684, ipu_utils.hpp:332-341). The TPU-native
-equivalent implemented here:
+src/IpuScene.cpp:648-684, ipu_utils.hpp:332-341). The equivalent
+implemented here:
 
-* one ``jax.sharding.Mesh`` with a single ``rays`` axis;
-* scene arrays replicated, ray batches sharded on ``rays`` via
-  ``shard_map`` — XLA moves the data over ICI;
+* one ``jax.sharding.Mesh`` with a single ``rays`` axis (the cards of one
+  host reach each other all to all, so one axis is the whole topology);
+* scene arrays replicated onto every device once, ray batches sharded on
+  ``rays`` via ``shard_map``;
 * per-replica RNG: the production streaming path seeds each replica's
   counter-RNG from a jump-separated host xoroshiro128** stream
   (``utils.xoshiro.derive_replica_seeds`` — the reference's scheme);
@@ -26,11 +27,13 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops.camera import generate_camera_rays
 from ..render.path import path_trace_sample
 from ..render.shadow import shadow_trace
+from ..render.streaming import (MAX_K_PER_DISPATCH, SPP_BATCH,
+                                _pixel_stream, streaming_path_trace)
 from ..scene.build import SceneArrays, SceneParams
 
 RAY_AXIS = "rays"
@@ -39,6 +42,13 @@ RAY_AXIS = "rays"
 def make_ray_mesh(devices=None) -> Mesh:
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (RAY_AXIS,))
+
+
+def replicate_scene(scene: SceneArrays, mesh: Mesh) -> SceneArrays:
+    """The scene pytree with every leaf replicated on every mesh device.
+    A no-op for a scene already replicated on this mesh, so callers can
+    replicate once and render many times without re-copying it."""
+    return jax.device_put(scene, NamedSharding(mesh, P()))
 
 
 def shard_rays(n: int, mesh: Mesh) -> int:
@@ -101,7 +111,8 @@ def render_path_sharded(
         out_specs=P(RAY_AXIS),
         check_vma=False,
     )
-    return jax.jit(shard_fn)(scene, rows, cols, env_params)
+    return jax.jit(shard_fn)(replicate_scene(scene, mesh), rows, cols,
+                             env_params)
 
 
 def render_streaming_sharded(
@@ -114,7 +125,7 @@ def render_streaming_sharded(
     env_fn=None,
     env_params=None,
     progress_callback=None,
-    spp_batch: int = 64,
+    spp_batch: int = SPP_BATCH,
 ):
     """Data-parallel streaming path render: the tile-ordered pixel stream
     is split across the mesh; every device runs the full regenerating
@@ -125,35 +136,20 @@ def render_streaming_sharded(
     multi-IPU replication: scene replicated, rays sharded, no collectives
     (images reassemble on the host — ref IpuScene.cpp:676-732).
 
-    Production discipline (same as the single-device path,
-    render/streaming.py): spp renders in decorrelated <= ``spp_batch``
-    batches so no single dispatch exceeds the TPU watchdog (one ~160 s
-    XLA program crashes the worker — PROGRESS.md finding 23), batches
-    accumulate ON DEVICE (sharded) so the image crosses the host link
-    once, ``RAY_READBACK_F16=1`` halves that transfer, and
-    ``progress_callback(batch_index, running_avg_rgb)`` surfaces partial
-    results per batch (ref RayCallback.cpp semantics)."""
-    import numpy as _np
-
-    from ..render.streaming import streaming_path_trace
+    Same dispatch discipline as the single-device path
+    (render/streaming.py): spp renders in decorrelated <= ``spp_batch``
+    batches of at most ``MAX_K_PER_DISPATCH``
+    paths per slot, batches accumulate ON DEVICE (sharded) so the image
+    crosses to the host once, ``RAY_READBACK_F16=1`` halves that
+    transfer, and ``progress_callback(batch_index, running_avg_rgb)``
+    surfaces partial results per batch (ref RayCallback.cpp semantics)."""
+    from ..utils.xoshiro import derive_replica_seeds
 
     spp = spp if spp is not None else params.samples_per_pixel
     w, h = params.window_w, params.window_h
     n_pix = w * h
     n_dev = mesh.devices.size
-
-    rr, cc = _np.meshgrid(
-        _np.arange(params.window_r, params.window_r + h),
-        _np.arange(params.window_c, params.window_c + w),
-        indexing="ij",
-    )
-    rel_r, rel_c = rr - params.window_r, cc - params.window_c
-    order = _np.lexsort(
-        (rel_c.ravel() % tile, rel_r.ravel() % tile,
-         rel_c.ravel() // tile, rel_r.ravel() // tile)
-    )
-    rows_np = rr.ravel()[order].astype(_np.float32)
-    cols_np = cc.ravel()[order].astype(_np.float32)
+    rows_np, cols_np, order = _pixel_stream(params, tile)
 
     # Per-device slice sizes: R_local slots x J rows, same (static) J on
     # every device:
@@ -161,49 +157,23 @@ def render_streaming_sharded(
     R_local = min(chunk_slots, per_dev)
     J = -(-per_dev // R_local)
     stream = n_dev * R_local * J
-    rows_np = _np.pad(rows_np, (0, stream - n_pix))
-    cols_np = _np.pad(cols_np, (0, stream - n_pix))
-    # Reorder so each device's slice is contiguous [R_local * J]:
-    rows_sh = rows_np.reshape(n_dev, R_local * J)
-    cols_sh = cols_np.reshape(n_dev, R_local * J)
-
-    from ..render.streaming import (_pick_br, _use_megakernel,
-                                    hbm_cull3_override,
-                                    hbm_reflag_cadence, reflag_override,
-                                    sub_granularity,
-                                    subq_granularity,
-                                    walk_compact_enabled,
-                                    walk_mxu_enabled,
-                                    cull2_override, fresh_override,
-                                    payt_override)
-
-    use_mega = _use_megakernel(params, env_fn) and R_local % 256 == 0
-    env_cfg = env_weights = None
-    if use_mega:
-        from ..ops.pallas.megakernel import megakernel_path_trace, pack_env_mlp
-
-        if env_fn is not None:
-            from ..render.streaming import env_flush_cadence, env_flush_count
-
-            env_cfg, env_weights = pack_env_mlp(
-                env_fn.nif_config, env_params)
-            env_every = env_flush_cadence(scene)
-            env_count = (env_flush_count(_pick_br(R_local, J))
-                         if env_every > 1 else 0)
-        else:
-            env_every = 1
-            env_count = 0
+    # Each device's slice is contiguous [R_local * J] of the padded stream:
+    rays = NamedSharding(mesh, P(RAY_AXIS))
+    rows_d = jax.device_put(
+        np.pad(rows_np, (0, stream - n_pix)).reshape(n_dev, R_local * J),
+        rays)
+    cols_d = jax.device_put(
+        np.pad(cols_np, (0, stream - n_pix)).reshape(n_dev, R_local * J),
+        rays)
+    scene = replicate_scene(scene, mesh)
+    if env_params is not None:
+        env_params = replicate_scene(env_params, mesh)
 
     def make_shard_fn(spp_b):
         max_iters = J * spp_b * params.max_path_length + 16
 
         def per_shard(scene_rep, rows_s, cols_s, env_p, seed_s):
             dev = jax.lax.axis_index(RAY_AXIS)
-            # Per-replica seed: this shard's jump-separated xoroshiro128**
-            # stream (derive_replica_seeds — the reference's per-replica
-            # seeding scheme, ref src/IpuScene.cpp:648-654), already
-            # folded with the spp-batch index on the host:
-            seed = seed_s[0]
             # This device's slice covers padded-stream pixels
             # [dev*R_local*J, (dev+1)*R_local*J); only < n_pix are real:
             n_valid = jnp.clip(
@@ -211,40 +181,13 @@ def render_streaming_sharded(
                 - dev.astype(jnp.int32) * jnp.int32(R_local * J),
                 0, R_local * J,
             )
-            if use_mega:
-                flat, done = megakernel_path_trace(
-                    scene_rep, rows_s[0], cols_s[0], seed, n_valid,
-                    params=params, slots=R_local, j_per_slot=J, spp=spp_b,
-                    max_iters=max_iters, br=_pick_br(R_local, J),
-                    env_cfg=env_cfg, env_weights=env_weights,
-                    env_every=env_every if env_cfg is not None else 1,
-                    env_count=env_count if env_cfg is not None else 0,
-                    hbm=params.intersector == "pallas-hbm",
-                    sub=sub_granularity(),
-                    reflag=reflag_override(),
-                    subq=subq_granularity(),
-                    walk_compact=walk_compact_enabled(),
-                    walk_mxu=walk_mxu_enabled(),
-                    walk_cull2=cull2_override(),
-                    walk_fresh=fresh_override(),
-                    pay_fused=payt_override(),
-                    # Static cache-key arg read only by the HBM walk —
-                    # conditional so RAY_HBM_REFLAG sweeps can't force
-                    # VMEM-mode recompiles (same as render_streaming):
-                    **({"hbm_reflag": hbm_reflag_cadence(),
-                        "hbm_cull3": hbm_cull3_override()}
-                       if params.intersector == "pallas-hbm" else {}),
-                    interpret=jax.default_backend() != "tpu",
-                )
-            else:
-                accum, done, _ = streaming_path_trace(
-                    scene_rep, rows_s[0], cols_s[0], seed, env_p, n_valid,
-                    params=params, slots=R_local, j_per_slot=J, spp=spp_b,
-                    max_iters=max_iters, has_env=env_fn is not None,
-                    env_fn=env_fn,
-                )
-                flat = (accum.transpose(0, 2, 1).reshape(R_local * J, 3)
-                        / spp_b)
+            accum, done, _ = streaming_path_trace(
+                scene_rep, rows_s[0], cols_s[0], seed_s[0], env_p, n_valid,
+                params=params, slots=R_local, j_per_slot=J, spp=spp_b,
+                max_iters=max_iters, has_env=env_fn is not None,
+                env_fn=env_fn,
+            )
+            flat = accum.transpose(0, 2, 1).reshape(R_local * J, 3) / spp_b
             return flat[None], done[None]
 
         return jax.jit(jax.shard_map(
@@ -255,59 +198,47 @@ def render_streaming_sharded(
             check_vma=False,
         ))
 
-    rows_d = jnp.asarray(rows_sh)
-    cols_d = jnp.asarray(cols_sh)
     shard_fns: dict = {}
 
     def assemble(flat_dev):
-        a = _np.asarray(flat_dev, _np.float32).reshape(stream, 3)
-        img = _np.empty((n_pix, 3), _np.float32)
-        img[order] = a[:n_pix]
+        a = np.asarray(flat_dev).astype(np.float32, copy=False)
+        img = np.empty((n_pix, 3), np.float32)
+        img[order] = a.reshape(stream, 3)[:n_pix]
         return img.reshape(h, w, 3)
 
     # Independent per-replica RNG streams via xoroshiro128** jump()
-    # (utils/xoshiro.py) — the TPU twin of the reference's per-replica
-    # seed derivation (ref src/IpuScene.cpp:648-654). The u64 jump seeds
-    # fold to u32 (the kernel's counter-RNG seed width); per spp-batch
-    # decorrelation folds in the batch index with the same golden-ratio
-    # stride the single-device path uses:
-    from ..utils.xoshiro import derive_replica_seeds
-
+    # (utils/xoshiro.py) — the reference's per-replica seed derivation
+    # (ref src/IpuScene.cpp:648-654). The u64 jump seeds fold to u32 (the
+    # counter-RNG seed width); per spp-batch decorrelation folds in the
+    # batch index with a golden-ratio stride:
     rep64 = derive_replica_seeds(params.rng_seed, n_dev)
-    rep32 = ((rep64 ^ (rep64 >> _np.uint64(32)))
-             & _np.uint64(0xFFFFFFFF)).astype(_np.uint32)
-    # Same watchdog discipline as render_streaming: device time per
-    # dispatch scales with J * spp_b (paths per lane), so the spp cap
-    # alone under-bounds large frames where J is big — cap the product:
-    from ..render.streaming import MAX_K_PER_DISPATCH
-
+    rep32 = ((rep64 ^ (rep64 >> np.uint64(32)))
+             & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     b_cap = max(1, MAX_K_PER_DISPATCH // J)
     flat_acc = None
-    done = 0
+    done_d: list = []
     s = bi = 0
     while s < spp:
         b = min(spp_batch, b_cap, spp - s)
         fn = shard_fns.get(b)
         if fn is None:
             fn = shard_fns[b] = make_shard_fn(b)
-        seeds_b = jnp.asarray(
-            rep32 + _np.uint32((0x85EBCA6B * bi) & 0xFFFFFFFF))
+        seeds_b = jax.device_put(
+            rep32 + np.uint32((0x85EBCA6B * bi) & 0xFFFFFFFF), rays)
         flat_b, done_b = fn(scene, rows_d, cols_d, env_params, seeds_b)
-        wgt = _np.float32(b / spp)
+        wgt = np.float32(b / spp)
         flat_acc = (flat_b * wgt if flat_acc is None
                     else flat_acc + flat_b * wgt)
-        done += int(_np.asarray(done_b).sum())
+        done_d.append(done_b)
         s += b
         if progress_callback is not None:
             # Running average so far (the accumulated weights sum to s/spp):
-            progress_callback(bi, assemble(flat_acc) * _np.float32(spp / s))
+            progress_callback(bi, assemble(flat_acc) * np.float32(spp / s))
         bi += 1
 
+    done = int(sum(np.asarray(d).astype(np.int64).sum() for d in done_d))
     if os.environ.get("RAY_READBACK_F16", "0") == "1":
-        flat = _np.asarray(flat_acc.astype(jnp.float16)).astype(_np.float32)
-        img = _np.empty((n_pix, 3), _np.float32)
-        img[order] = flat.reshape(stream, 3)[:n_pix]
-        return img.reshape(h, w, 3), done
+        flat_acc = flat_acc.astype(jnp.float16)
     return assemble(flat_acc), done
 
 
@@ -334,4 +265,4 @@ def render_shadow_sharded(
         out_specs=P(RAY_AXIS),
         check_vma=False,
     )
-    return jax.jit(shard_fn)(scene, rows, cols)
+    return jax.jit(shard_fn)(replicate_scene(scene, mesh), rows, cols)

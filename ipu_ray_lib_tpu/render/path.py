@@ -1,13 +1,13 @@
 """Wavefront path-trace integrator (one sample per ray).
 
-TPU redesign of the reference's PathTrace megakernel
+Wavefront redesign of the reference's PathTrace codelet
 (ref: codelets/TraceCodelets.cpp:170-264): instead of a divergent per-ray
 bounce loop, all rays advance together through a ``lax.while_loop`` over
 bounces with masked lanes. Per bounce: self-intersection offset, BVH
 closest hit, emissive accumulation, masked-select material sampling
 (diffuse / specular / dielectric), Russian roulette after the configured
 depth. Escaped rays record their direction and throughput so an
-environment light (NIF) can be applied afterwards in one batched MXU pass
+environment light (NIF) can be applied afterwards in one batched matmul pass
 (the wavefront analogue of the reference's PreProcess/PostProcessEscapedRays
 vertices, TraceCodelets.cpp:321-382).
 """

@@ -35,18 +35,6 @@ class TraceResultSoA(NamedTuple):
     escaped: jnp.ndarray  # [R] bool
 
 
-def fused_shadow_enabled() -> bool:
-    """Fused single-kernel shadow trace (ops/pallas/shadow_kernel.py,
-    round 5): primary walk + sphere/disc overrides + shadow-ray gen +
-    occlusion walk + lambert in ONE pallas_call, replacing the two
-    intersect dispatches + XLA glue. Bitwise vs the glue path on CPU
-    (tests/test_render_e2e.py gate). ``RAY_SHADOW_FUSED=0`` restores
-    the glue path (A/B escape hatch)."""
-    import os
-
-    return os.environ.get("RAY_SHADOW_FUSED", "1") != "0"
-
-
 def shadow_trace(
     scene: SceneArrays,
     origins: jnp.ndarray,
@@ -54,15 +42,7 @@ def shadow_trace(
     light_pos=DEFAULT_LIGHT_POS,
     ambient: float = DEFAULT_AMBIENT,
     intersector: str = "bvh",
-    fused: bool | None = None,
 ) -> TraceResultSoA:
-    if fused is None:
-        fused = fused_shadow_enabled()
-    if (fused and intersector == "pallas"
-            and scene.blocked.p is not None):
-        from ..ops.pallas.shadow_kernel import fused_shadow_trace
-
-        return fused_shadow_trace(scene, origins, dirs, light_pos, ambient)
     inf = jnp.float32(jnp.inf)
     zero = jnp.float32(0.0)
     R = origins.shape[0]

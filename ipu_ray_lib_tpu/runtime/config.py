@@ -1,11 +1,12 @@
 """Runtime configuration and device/session management.
 
-The TPU equivalent of the reference's runtime framework
+The equivalent of the reference's runtime framework
 (ref: include/ipu_utils.hpp — RuntimeConfig:174-183, DeferredDevice:79-172,
 GraphManager:523-610, executable caching:51-76):
 
-* device acquisition: enumerate devices, select TPU chips (or fall back
-  to CPU — the reference's IPUModel-simulator analogue);
+* device acquisition: enumerate devices and require a GPU, or the CPU
+  when it is asked for explicitly (the reference's IPUModel-simulator
+  analogue) — never a silent fallback;
 * executable caching: the JAX persistent compilation cache replaces
   saveExe/loadExe + the program-name registry (compiled executables are
   keyed by HLO, so "re-run by name" is automatic);
@@ -28,45 +29,98 @@ class RuntimeConfig:
 
     num_devices: int = 0          # 0 = all available (ref: numIpus)
     use_cpu: bool = False         # CPU backend (ref: useIpuModel simulator)
-    cache_dir: str = ""           # persistent compile cache (ref: saveExe/loadExe)
     compile_only: bool = False    # AOT compile without running
 
 
-def setup_compilation_cache(cache_dir: str | None = None) -> None:
-    """Enable the persistent compilation cache (ref saveExe/loadExe role)."""
+# <checkout>/.jax_cache: the cache directory when JAX_COMPILATION_CACHE_DIR
+# is not set (listed in .gitignore):
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
+
+
+def compilation_cache_dir() -> str:
+    """Where the persistent compilation cache lives:
+    ``JAX_COMPILATION_CACHE_DIR`` when set, else :data:`DEFAULT_CACHE_DIR`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def setup_compilation_cache() -> str:
+    """Enable the persistent compilation cache (ref saveExe/loadExe role)
+    in :func:`compilation_cache_dir`; returns that directory."""
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "ipu_ray_lib_tpu_xla"),
-    )
+    cache_dir = compilation_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     logger().debug("Compilation cache at %s", cache_dir)
+    return cache_dir
+
+
+class NoGpuError(RuntimeError):
+    """No GPU is visible to JAX and the CPU was not asked for."""
+
+
+def require_gpu() -> None:
+    """Raise :class:`NoGpuError` unless JAX's default backend is a GPU.
+    Measurement entry points call this first: a number taken on the CPU
+    must never pass for one taken on the card."""
+    import jax
+
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise NoGpuError(
+            f"no GPU found (JAX backend is '{backend}'); this entry point "
+            "measures the card and does not fall back to the CPU")
+
+
+def _cpu_requested() -> bool:
+    """Whether JAX was told to use the CPU alone (``JAX_PLATFORMS=cpu``
+    or ``jax.config.update("jax_platforms", "cpu")``)."""
+    import jax
+
+    return (jax.config.jax_platforms or "").strip() == "cpu"
+
+
+def select_backend(use_cpu: bool = False) -> str:
+    """The backend a render runs on: the GPU, or the CPU only when asked
+    for (``use_cpu`` or ``JAX_PLATFORMS=cpu``). Raises
+    :class:`NoGpuError` when there is no GPU and the CPU was not asked
+    for. Returns JAX's platform name."""
+    import jax
+
+    if use_cpu:
+        jax.config.update("jax_platforms", "cpu")
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return backend
+    if backend == "cpu" and _cpu_requested():
+        return backend
+    raise NoGpuError(
+        f"no GPU found (JAX backend is '{backend}'); set JAX_PLATFORMS=cpu "
+        "to render on the CPU")
 
 
 def acquire_devices(config: RuntimeConfig):
-    """Device acquisition with fallback (role of ref DeferredDevice).
+    """Device acquisition (role of ref DeferredDevice).
 
-    Returns the list of devices to use. Raises if a TPU was requested and
-    none is usable (the reference exhausts attach attempts similarly,
-    ipu_utils.hpp:143-159).
+    Returns the list of devices to use: GPUs, or CPU devices when
+    ``config.use_cpu`` or ``JAX_PLATFORMS=cpu`` asks for them. Raises
+    :class:`NoGpuError` otherwise when no GPU is usable (the reference
+    exhausts attach attempts similarly, ipu_utils.hpp:143-159).
     """
     import jax
 
     log = logger()
-    if config.use_cpu:
-        jax.config.update("jax_platforms", "cpu")
-        devices = jax.devices("cpu")
-        log.info("Using CPU backend with %d device(s) (simulator role)", len(devices))
-    else:
-        t0 = time.time()
-        devices = jax.devices()
-        log.info(
-            "Acquired %d device(s) on platform '%s' in %.1fs",
-            len(devices), devices[0].platform, time.time() - t0,
-        )
+    t0 = time.time()
+    select_backend(config.use_cpu)
+    devices = jax.devices()
+    log.info(
+        "Acquired %d device(s) on platform '%s' (%s) in %.1fs",
+        len(devices), devices[0].platform, devices[0].device_kind,
+        time.time() - t0,
+    )
     if config.num_devices > 0:
         if len(devices) < config.num_devices:
             log.warning(
@@ -83,7 +137,7 @@ class CompileProgress:
 
     The reference intercepts poplar's compile-progress callbacks and
     throttles them into readable log lines. XLA exposes no percentage
-    callback, so the TPU analogue has two halves:
+    callback, so the analogue here has two halves:
 
     * this context manager — a heartbeat thread that logs elapsed time
       at a throttled cadence while a (possibly multi-minute) lowering/

@@ -1,6 +1,6 @@
 """Scene compilation: SceneDescription -> device-ready SoA arrays.
 
-The TPU-native replacement for the reference's ``buildSceneData`` +
+The JAX replacement for the reference's ``buildSceneData`` +
 serialiser + on-device ``BuildDataStructures`` re-wrapping
 (ref: src/app_utils.cpp:291-364, codelets/TraceCodelets.cpp:63-124):
 instead of a byte stream that must be deserialised on device, the scene is
@@ -14,7 +14,6 @@ discs — src/app_utils.cpp:321-339) so material tables carry over.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -25,18 +24,39 @@ import jax.numpy as jnp
 from ..bvh.builder import CompactBvh, build_bvh
 from .types import CropWindow, SceneDescription
 
-if False:  # import-cycle guard: these are only annotations here
+if False:  # import-cycle guard: only an annotation here
     from ..ops.dense import DenseTables
-    from ..ops.pallas.tables import BlockedSceneTables
 
 GEOM_MESH = 0
 GEOM_SPHERE = 1
 GEOM_DISC = 2
 
-# Scenes larger than this skip the dense (MXU) intersector tables unless
-# it is requested explicitly — see build_scene (tests monkeypatch this
-# down to cover the skip path):
+# Scenes larger than this skip the dense intersector tables unless it is
+# requested explicitly — see build_scene (tests monkeypatch this down to
+# cover the skip path):
 DENSE_TABLE_MAX_TRIS = 65536
+
+INTERSECTORS = ("bvh", "dense")
+
+# intersector="auto" picks 'dense' up to this many primitives and 'bvh'
+# above it. Dense cost grows with the number of 512-triangle blocks, the
+# BVH walk's barely: on an H100, Cornell + monkey at 1440^2 (4,035
+# primitives, 8 blocks) renders ~10% faster dense, and with 8,035
+# primitives bvh is 1.65x faster, so the crossover is past 8 blocks and
+# before 9 (CHANGES.md, PR 1):
+AUTO_DENSE_MAX_PRIMS = 4096
+
+
+def resolve_intersector(intersector: str, total_prims: int) -> str:
+    """The intersector build_scene uses: ``auto`` resolves by primitive
+    count; 'bvh' and 'dense' pass through; anything else is an error."""
+    if intersector == "auto":
+        return "dense" if total_prims <= AUTO_DENSE_MAX_PRIMS else "bvh"
+    if intersector not in INTERSECTORS:
+        raise ValueError(
+            f"unknown intersector {intersector!r}: expected 'auto', "
+            "'bvh' or 'dense'")
+    return intersector
 
 
 class SceneArrays(NamedTuple):
@@ -72,8 +92,6 @@ class SceneArrays(NamedTuple):
 
     # Dense-intersector tables (ops/dense.py) + per-prim geom id maps:
     dense: "DenseTables"
-    # Blocked Morton-ordered tables for the Pallas kernel (ops/pallas):
-    blocked: "BlockedSceneTables"
     sphere_geom: jnp.ndarray  # [S] i32 geomID of each sphere
     disc_geom: jnp.ndarray    # [D] i32 geomID of each disc
 
@@ -100,8 +118,8 @@ class SceneParams:
     window_c: int
     window_r: int
     path_trace: bool
-    # 'bvh' (threaded traversal, any scene size) or 'dense' (MXU brute
-    # force, the fast path for SRAM-class scenes like the reference's):
+    # 'bvh' (threaded traversal, any scene size) or 'dense' (brute force
+    # over triangle blocks, for small scenes like the reference's):
     intersector: str = "bvh"
 
 
@@ -232,40 +250,13 @@ def build_scene(
         if scene.meshes else np.zeros(0, np.int32)
     )
     from ..ops.dense import build_dense_tables
-    from ..ops.pallas.tables import build_blocked_tables
 
-    # Resolve intersector="auto" before deciding which tables to build:
     total_prims = len(tri_geom_ids) + len(scene.spheres) + len(scene.discs)
-    if intersector == "auto":
-        import jax
+    intersector = resolve_intersector(intersector, total_prims)
 
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            # The jnp threaded-BVH crashes the TPU worker at scale
-            # (PROGRESS.md finding 8) — never auto-select it on TPU.
-            intersector = "pallas" if total_prims <= 65536 else "pallas-hbm"
-        elif total_prims <= 32768:
-            intersector = "dense"
-        else:
-            intersector = "bvh"
-    elif intersector == "bvh":
-        import jax
-
-        if jax.default_backend() == "tpu":
-            # Fail fast with guidance instead of letting the dispatch
-            # kill the worker mid-render (a worker crash takes the
-            # device down for every process sharing it):
-            raise ValueError(
-                "intersector='bvh' (threaded jnp BVH) faults the TPU "
-                "worker at ~131k-ray dispatches (PROGRESS.md finding 8) "
-                "and is disabled on TPU; use 'pallas' (<=65k prims) or "
-                "'pallas-hbm' (any size) — 'auto' picks correctly.")
-
-    # Dense (MXU) tables are only auto-selected for small scenes and are
-    # architecturally hopeless past the VMEM boundary (finding 22: the
-    # [R, TB] intermediates live in HBM) — building them for a 2M-tri
-    # import wastes ~30% of host build time. Skip them at scale unless
-    # the caller explicitly asked for the dense intersector;
+    # Dense tables are only auto-selected for small scenes; building them
+    # for a 2M-tri import wastes ~30% of host build time. Skip them at
+    # scale unless the caller explicitly asked for the dense intersector;
     # dense_intersect raises a clear error on a skipped table:
     build_dense = (
         len(tri_v) <= DENSE_TABLE_MAX_TRIS or intersector == "dense")
@@ -274,63 +265,6 @@ def build_scene(
         verts if len(verts) else np.zeros((0, 3), np.float32),
         tri_geom_ids, tri_prim_ids,
     ) if build_dense else None
-    tri_has_normals = (
-        np.concatenate([
-            np.full(len(m.triangles), bool(m.has_normals)) for m in scene.meshes
-        ]) if scene.meshes else np.zeros(0, bool)
-    )
-    tri_mat_ids = (
-        mat_id[tri_geom_ids] if len(tri_geom_ids) else np.zeros(0, np.int32)
-    )
-    from ..ops.pallas.tables import VMEM_TABLE_MAX_TRIS
-
-    # Reuse the scene BVH's depth-first triangle leaf order as the
-    # blocked tables' SAH-treelet ordering (the flattened compact layout
-    # emits one leaf node per primitive in DFS order for any leaf size),
-    # saving the second full SAH build the tables would otherwise run
-    # (finding 43: ~25 s each at 2M tris). Sphere/disc leaves are
-    # filtered out; local primIDs rebase to global triangle ids via
-    # mesh_first_tri:
-    # RAY_TABLE_ORDER=internal forces the tables' own tri-only SAH build
-    # (A/B attribution: on mixed scenes the scene-BVH order interleaves
-    # around sphere/disc leaves, so block layouts differ slightly).
-    # Reuse policy: tri-only scenes always (provably bitwise-identical
-    # tables — tests/test_tables_order.py); mixed scenes only above the
-    # VMEM ceiling, where the saved leaf-1 SAH build is seconds-to-
-    # minutes and the slightly different treelet interleave measured
-    # identical block tightness at 131k tris. Small mixed scenes (the
-    # bench class) keep the internal build so measured walk layouts
-    # stay exactly as swept:
-    tri_only = not (len(scene.spheres) or len(scene.discs))
-    tri_order = None
-    if (len(tri_v)
-            and (tri_only or len(tri_v) > VMEM_TABLE_MAX_TRIS)
-            and os.environ.get("RAY_TABLE_ORDER") != "internal"):
-        from ..bvh.builder import INVALID_GEOM_ID
-
-        leaf = bvh.geom != INVALID_GEOM_ID
-        lg = bvh.geom[leaf].astype(np.int64)
-        lp = bvh.meta[leaf].astype(np.int64)
-        tri_leaf = lg < len(scene.meshes)
-        first_tri = np.asarray(mesh_first_tri, np.int64)
-        tri_order = first_tri[lg[tri_leaf]] + lp[tri_leaf]
-
-    blocked = build_blocked_tables(
-        tri_v if len(tri_v) else np.zeros((0, 3), np.int32),
-        verts if len(verts) else np.zeros((1, 3), np.float32),
-        tri_geom_ids, tri_prim_ids,
-        vert_normals=normals if len(normals) else None,
-        tri_has_normals=tri_has_normals,
-        tri_mat=tri_mat_ids,
-        mat_albedo=mat_albedo, mat_ior=mat_ior, mat_type=mat_type,
-        mat_emission=mat_emission, mat_emissive=mat_emissive,
-        # The VMEM-layout p duplicates p8 bitwise; above the VMEM kernel
-        # ceiling it is dead weight (536 MB at 8.4M tris) unless the
-        # VMEM intersector was forced explicitly:
-        with_vmem_p=(len(tri_v) <= VMEM_TABLE_MAX_TRIS
-                     or intersector == "pallas"),
-        tri_order=tri_order,
-    )
     sphere_geom = sphere_gid0 + np.arange(max(len(scene.spheres), 1), dtype=np.int32)
     disc_geom = disc_gid0 + np.arange(max(len(scene.discs), 1), dtype=np.int32)
 
@@ -356,7 +290,6 @@ def build_scene(
         mat_type=jnp.asarray(_pad_rows(mat_type)),
         mat_emissive=jnp.asarray(_pad_rows(mat_emissive)),
         dense=dense,
-        blocked=blocked,
         sphere_geom=jnp.asarray(sphere_geom),
         disc_geom=jnp.asarray(disc_geom),
     )

@@ -168,8 +168,8 @@ def make_cornell_box_scene(mesh_file: str | None = None, box_only: bool = False)
 def make_stress_scene(grid: int = 512) -> SceneDescription:
     """Large-scene stress test: a displaced heightfield of
     ``2 * (grid-1)^2`` triangles under an overhead disc light. Exists to
-    exercise the HBM-streamed intersector (scenes beyond the 64k-prim
-    VMEM class — role of the reference's DRAM ray streaming,
+    exercise the BVH intersector on scenes far beyond the reference's
+    size class (role of the reference's DRAM ray streaming,
     src/IpuScene.cpp:375-391); no reference counterpart scene.
 
     grid=512 -> 522,242 triangles."""

@@ -3,8 +3,8 @@
 Role of the reference's executable/save-load pathway applied to scenes:
 expensive host-side work (imports, BVH build) is done once and persisted
 via :mod:`.serial`; loads rebuild the device pytree directly. The
-derived intersector tables (dense MXU + blocked Pallas) are deterministic
-precomputes and are regenerated on load.
+derived dense intersector tables are a deterministic precompute and are
+regenerated on load.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ def save_compiled_scene(path: str, arrays: SceneArrays, params: SceneParams,
 def load_compiled_scene(path: str):
     """Returns (SceneArrays, SceneParams, CompactBvh)."""
     from ..ops.dense import build_dense_tables
-    from ..ops.pallas.tables import build_blocked_tables
 
     bvh, host, meta = load_scene_bundle(path)
     params = SceneParams(**meta)  # keys align with dataclasses.asdict(params)
@@ -62,25 +61,6 @@ def load_compiled_scene(path: str):
         build_dense_tables(tri_v, verts, tri_geom, tri_prim)
         if (T <= DENSE_TABLE_MAX_TRIS or params.intersector == "dense")
         else None)  # same skip rule as build_scene (host-build time)
-    has_n = host["mesh_has_normals"][: params.num_meshes]
-    tri_has_normals = np.zeros(T, bool)
-    for g in range(params.num_meshes):
-        sl = slice(bounds[g], bounds[g + 1])
-        tri_has_normals[sl] = bool(has_n[g])
-    mat_id_arr = host["mat_id"]
-    tri_mat = mat_id_arr[np.clip(tri_geom, 0, len(mat_id_arr) - 1)]
-    from ..ops.pallas.tables import VMEM_TABLE_MAX_TRIS
-
-    blocked = build_blocked_tables(
-        tri_v, verts, tri_geom, tri_prim,
-        vert_normals=host["normals"], tri_has_normals=tri_has_normals,
-        tri_mat=tri_mat, mat_albedo=host["mat_albedo"],
-        mat_ior=host["mat_ior"], mat_type=host["mat_type"],
-        mat_emission=host["mat_emission"], mat_emissive=host["mat_emissive"],
-        with_vmem_p=(T <= VMEM_TABLE_MAX_TRIS
-                     or params.intersector == "pallas"),
-    )
-
     arrays = SceneArrays(
         bvh_min=jnp.asarray(bvh.mins),
         bvh_ext=jnp.asarray(bvh.exts),
@@ -88,7 +68,6 @@ def load_compiled_scene(path: str):
         bvh_geom=jnp.asarray(bvh.geom),
         bvh_miss=jnp.asarray(bvh.miss),
         dense=dense,
-        blocked=blocked,
         **{name: jnp.asarray(host[name]) for name in _ARRAY_FIELDS},
     )
     return arrays, params, bvh

@@ -3,7 +3,7 @@
 The reference's serialisation layer exists to move a scene into device
 SRAM as one aligned byte stream that is reinterpreted zero-copy on device
 (ref: include/serialisation/Serialiser.hpp:16-22, Deserialiser.hpp:31-39).
-On TPU the device transport is just a pytree of arrays, so the layer's
+Here the device transport is just a pytree of arrays, so the layer's
 remaining job is *persistence*: saving a compiled scene (unified mesh
 arrays + compact BVH + materials) so later runs skip the build step —
 and doing so in a layout-stable, alignment-checked format.

@@ -47,7 +47,7 @@ RAY_EPSILON = np.float32(MACHINE_EPSILON * 1500.0)
 # impossible by construction. (The two incident triangles may BOTH
 # accept within the band — a benign double hit at equal t; the
 # reference's optional exact-edge double recompute resolves such ties
-# exactly instead, README.md:109-120 — not expressible on TPU f32.)
+# exactly instead, README.md:109-120 — not expressible in pure f32.)
 # 16*eps_mach covers the chain; x2 safety for the table quantisation.
 # Kernels CLAMP the resulting eps at 1e-3: near-grazing pairs (n.d -> 0)
 # blow E_t up and would otherwise turn the widened test into accept-all

@@ -7,7 +7,7 @@ capability: a small, fast, jumpable generator implemented from the public
 xoroshiro128** algorithm (Blackman & Vigna, public domain), vectorised with
 numpy where useful.
 
-Device-side RNG uses ``jax.random`` (threefry) / ``pltpu.prng_*`` instead —
+Device-side RNG uses ``jax.random`` (threefry) / ops/rng.py instead —
 distribution-level parity only, exactly as the reference accepts between
 its CPU and IPU renderers (RNG streams differ; images match in
 distribution, see LITERATE_TEST.ipynb methodology).

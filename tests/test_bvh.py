@@ -1,7 +1,7 @@
 """BVH build invariants: containment, fp16 conservativeness, threading.
 
 Mirrors the intent of the reference's serialiser/compact-node unit tests
-(ref tests/test.cpp:122-154) for the TPU node encoding.
+(ref tests/test.cpp:122-154) for the threaded compact node encoding.
 """
 
 import numpy as np

@@ -24,10 +24,10 @@ def test_cli_shadow_trace_box(tmp_path):
     )
     from ipu_ray_lib_tpu.utils.exr import read_exr
 
-    tpu = read_exr(out + "_normal_tpu.exr")
+    dev = read_exr(out + "_normal_device.exr")
     oracle = read_exr(out + "_normal_oracle.exr")
-    assert tpu.shape == (24, 24, 3)
-    d = (tpu - oracle) ** 2
+    assert dev.shape == (24, 24, 3)
+    d = (dev - oracle) ** 2
     assert d.mean() < 1e-3
 
 
@@ -36,11 +36,11 @@ def test_cli_path_trace_crop(tmp_path):
         tmp_path,
         "--scene", "box-simple", "-w", "32", "-H", "32",
         "--crop", "8x8+12+12", "--samples", "4", "--chunk-size", "64",
-        "--tpu-only", "--intersector", "dense",
+        "--device-only", "--intersector", "dense",
     )
     from ipu_ray_lib_tpu.utils.exr import read_exr
 
-    img = read_exr(out + "_rgb_tpu.exr")
+    img = read_exr(out + "_rgb_device.exr")
     assert img.shape == (8, 8, 3)
     assert np.isfinite(img).all()
 
@@ -50,11 +50,11 @@ def test_cli_collada_scene(tmp_path):
         tmp_path,
         "--mesh-file", "assets/hdri_test.dae", "-w", "16", "-H", "16",
         "--render-mode", "shadow-trace", "--visualise", "id",
-        "--chunk-size", "256", "--tpu-only", "--intersector", "dense",
+        "--chunk-size", "256", "--device-only", "--intersector", "dense",
     )
     from ipu_ray_lib_tpu.utils.exr import read_exr
 
-    img = read_exr(out + "_id_tpu.exr")
+    img = read_exr(out + "_id_device.exr")
     assert img.max() > 0  # some geometry visible
 
 
@@ -66,7 +66,7 @@ def test_cli_scene_cache_round_trip(tmp_path):
 
     cache = str(tmp_path / "cache")
     args = ["--scene", "box-simple", "-w", "24", "-H", "24",
-            "--samples", "2", "--chunk-size", "576", "--tpu-only",
+            "--samples", "2", "--chunk-size", "576", "--device-only",
             "--intersector", "dense", "--scene-cache", cache]
     (tmp_path / "a").mkdir()
     (tmp_path / "b").mkdir()
@@ -75,8 +75,8 @@ def test_cli_scene_cache_round_trip(tmp_path):
     assert len(bundles) == 1
     out2 = _run(tmp_path / "b", *args)
     assert len(os.listdir(cache)) == 1  # second run hit the cache
-    a = read_exr(out1 + "_rgb_tpu.exr")
-    b = read_exr(out2 + "_rgb_tpu.exr")
+    a = read_exr(out1 + "_rgb_device.exr")
+    b = read_exr(out2 + "_rgb_device.exr")
     np.testing.assert_array_equal(a, b)
 
 
@@ -89,22 +89,36 @@ def test_cli_rejects_bad_args(tmp_path):
         cli.main(["--render-mode", "path-trace", "--visualise", "normal"])
 
 
-def test_bvh_intersector_rejected_on_tpu(monkeypatch):
-    """An explicit --intersector bvh on the TPU backend must fail fast
-    with guidance (the threaded jnp BVH faults the TPU worker at ~131k
-    rays, PROGRESS.md finding 8) instead of crashing mid-render."""
-    import jax
-    import pytest
+@pytest.mark.parametrize("name", ["pallas", "pallas-hbm", "nonsense"])
+def test_cli_rejects_unknown_intersector(name):
+    """The CLI offers auto, bvh and dense only."""
+    import trace as cli
 
+    with pytest.raises(SystemExit):
+        cli.main(["--intersector", name])
+
+
+@pytest.mark.parametrize("name", ["pallas", "pallas-hbm"])
+def test_build_scene_rejects_unknown_intersector(name):
     from ipu_ray_lib_tpu.scene.build import build_scene
     from ipu_ray_lib_tpu.scene.builtin import make_cornell_box_scene
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="pallas"):
-        build_scene(make_cornell_box_scene(mesh_file=None),
-                    intersector="bvh")
-    # 'auto' keeps resolving to a pallas intersector on TPU:
-    _, params, _ = build_scene(
-        make_cornell_box_scene(mesh_file=None), image_width=48,
-        image_height=32, intersector="auto")
-    assert params.intersector == "pallas"
+    with pytest.raises(ValueError, match="unknown intersector"):
+        build_scene(make_cornell_box_scene(mesh_file=None, box_only=True),
+                    image_width=8, image_height=8, intersector=name)
+
+
+def test_cli_stops_without_gpu(tmp_path, monkeypatch):
+    """With no GPU and no explicit request for the CPU, trace.py renders
+    nothing and exits with an error instead of falling back."""
+    import trace as cli
+
+    from ipu_ray_lib_tpu.runtime import config
+
+    monkeypatch.setattr(config, "_cpu_requested", lambda: False)
+    out = str(tmp_path / "out")
+    rc = cli.main(["--scene", "box-simple", "-w", "8", "-H", "8",
+                   "--samples", "1", "--device-only", "-o", out,
+                   "--log-level", "off"])
+    assert rc == 2
+    assert not list(tmp_path.iterdir())

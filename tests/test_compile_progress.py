@@ -60,7 +60,7 @@ def test_cli_compile_only_path_trace(tmp_path):
     rc = cli.main([
         "--scene", "box-simple", "-w", "16", "-H", "16",
         "--samples", "2", "--max-path-length", "2", "--chunk-size", "256",
-        "--tpu-only", "--intersector", "dense", "--compile-only",
+        "--device-only", "--intersector", "dense", "--compile-only",
         "-o", out, "--log-level", "warn",
     ])
     assert rc == 0
@@ -74,7 +74,7 @@ def test_cli_compile_only_shadow_trace(tmp_path):
     rc = cli.main([
         "--scene", "box-simple", "-w", "16", "-H", "16",
         "--render-mode", "shadow-trace", "--visualise", "normal",
-        "--chunk-size", "256", "--tpu-only", "--intersector", "dense",
+        "--chunk-size", "256", "--device-only", "--intersector", "dense",
         "--compile-only", "-o", out, "--log-level", "warn",
     ])
     assert rc == 0

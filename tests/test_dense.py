@@ -1,4 +1,4 @@
-"""Dense MXU intersector correctness: must agree with the BVH path and
+"""Dense intersector correctness: must agree with the BVH path and
 the brute-force oracle on closest hits, occlusion, and full AOV renders."""
 
 import dataclasses
@@ -88,48 +88,8 @@ def test_dense_path_trace_smoke(cornell_built):
     assert out.rgb.max() > 0
 
 
-def test_pallas_intersector_matches_bvh(cornell_built):
-    """Pallas blocked kernel (interpret mode on CPU) vs BVH closest hit."""
-    from ipu_ray_lib_tpu.ops.traversal import pallas_scene_intersect
-
-    arrays, params, _ = cornell_built
-    o, d = _camera_rays(params, 16)
-    R = o.shape[0]
-    t_min = jnp.zeros(R)
-    t_max = jnp.full(R, jnp.inf)
-    hb = bvh_intersect(arrays, o, d, t_min, t_max)
-    hp = pallas_scene_intersect(arrays, o, d, t_min, t_max)
-    fb, fp = np.asarray(hb.found), np.asarray(hp.found)
-    assert (fb == fp).mean() > 0.99
-    both = fb & fp
-    rel = np.abs(np.asarray(hb.t) - np.asarray(hp.t))[both] / np.maximum(
-        np.asarray(hb.t)[both], 1.0
-    )
-    assert np.quantile(rel, 0.99) < 1e-4
-    assert (np.asarray(hb.geom_id) == np.asarray(hp.geom_id))[both].mean() > 0.99
-
-
-def test_pallas_kernel_normals_match_hit_normal(cornell_built):
-    """Kernel-selected shading normals must match hit_normal recomputation."""
-    from ipu_ray_lib_tpu.ops.traversal import (
-        hit_normal,
-        pallas_scene_intersect,
-    )
-
-    arrays, params, _ = cornell_built
-    o, d = _camera_rays(params, 16)
-    R = o.shape[0]
-    t_min = jnp.zeros(R)
-    t_max = jnp.full(R, jnp.inf)
-    hit, n_kernel = pallas_scene_intersect(arrays, o, d, t_min, t_max, with_normal=True)
-    n_ref = hit_normal(arrays, o, d, hit)
-    both = np.asarray(hit.found)
-    dots = np.sum(np.asarray(n_kernel) * np.asarray(n_ref), axis=-1)[both]
-    assert np.quantile(dots, 0.01) > 0.9999
-
-
 def test_dense_tables_skipped_at_scale(monkeypatch):
-    """Past DENSE_TABLE_MAX_TRIS the (useless-at-scale) dense MXU tables
+    """Past DENSE_TABLE_MAX_TRIS the (useless-at-scale) dense tables
     are skipped to keep multi-million-triangle imports fast; using the
     dense intersector on such arrays raises a clear error, and an
     explicit intersector='dense' still builds them."""
@@ -144,9 +104,9 @@ def test_dense_tables_skipped_at_scale(monkeypatch):
 
     scene = make_stress_scene(16)   # 1058 tris
     monkeypatch.setattr(B, "DENSE_TABLE_MAX_TRIS", 100)
-    arrays, params, _ = build_args = B.build_scene(
+    arrays, params, _ = B.build_scene(
         scene, image_width=16, image_height=16, samples_per_pixel=1,
-        intersector="pallas")
+        intersector="bvh")
     assert arrays.dense is None
     o = jnp.zeros((4, 3), jnp.float32)
     d = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (4, 1))

@@ -151,105 +151,3 @@ def test_path_trace_with_env_light(tmp_path):
     assert np.all(np.isfinite(out.rgb))
     # With a bright uniform env, the image must be clearly lit:
     assert out.rgb.mean() > 0.1
-
-
-def test_megakernel_env_matches_xla_loop(tmp_path):
-    """The in-kernel fused env MLP (ops/pallas/megakernel.py pack_env_mlp)
-    must reproduce the XLA-loop integrator's env lighting: same NIF, same
-    RNG streams, same estimator — differences bounded by bf16 matmul
-    accumulation order and the kernel's polynomial atan2."""
-    from ipu_ray_lib_tpu.render import streaming as S
-    from ipu_ray_lib_tpu.scene.build import build_scene
-    from ipu_ray_lib_tpu.scene.builtin import make_primitive_scene
-
-    h, w = 8, 16
-    rng = np.random.default_rng(3)
-    img = (0.3 + rng.random((h, w, 3))).astype(np.float32)
-    model, meta = train_nif(img, embedding_dimension=3, layer_count=3,
-                            layer_size=16, steps=300, batch_size=128, seed=2)
-    out_dir = str(tmp_path / "env_assets")
-    save_nif_assets(model, meta, out_dir)
-    env_fn, env_params = load_nif_env(out_dir, rotation_degrees=30.0)
-    assert env_fn.nif_config is not None
-
-    scene = make_primitive_scene()
-    arrays, params, _ = build_scene(
-        scene, image_width=32, image_height=24, samples_per_pixel=4,
-        max_path_length=4, intersector="pallas",
-    )
-    assert S._use_megakernel(params, env_fn)
-    img_mk, done_mk = S.render_streaming(
-        arrays, params, env_fn=env_fn, env_params=env_params, spp=4)
-    orig = S._use_megakernel
-    S._use_megakernel = lambda p, e: False
-    try:
-        img_xla, done_xla = S.render_streaming(
-            arrays, params, env_fn=env_fn, env_params=env_params, spp=4)
-    finally:
-        S._use_megakernel = orig
-    assert done_mk == done_xla == 32 * 24 * 4
-    assert np.all(np.isfinite(img_mk))
-    assert float(np.abs(img_mk - img_xla).max()) < 5e-3
-    assert img_mk.mean() > 0.05  # actually lit by the env
-
-
-def test_pack_env_mlp_layout():
-    """pack_env_mlp: transposed kernels, bias in the homogeneous column,
-    decode constants in econst — applying the packed form by hand must
-    reproduce NifModel.apply."""
-    from ipu_ray_lib_tpu.nif.model import NifConfig
-    from ipu_ray_lib_tpu.ops.pallas.megakernel import pack_env_mlp
-
-    rng = np.random.default_rng(11)
-    E = 2
-    config = NifConfig(
-        embedding_dimension=E,
-        activations=("relu", "linear"),
-        concat_before=(False, True),
-        log_tone_map=True,
-    )
-    k0 = rng.normal(size=(4 * E, 16)).astype(np.float32)
-    k1 = rng.normal(size=(16 + 4 * E, 3)).astype(np.float32)
-    b0 = rng.normal(size=16).astype(np.float32)
-    b1 = rng.normal(size=3).astype(np.float32)
-    params = {
-        "kernels": (jnp.asarray(k0), jnp.asarray(k1)),
-        "biases": (jnp.asarray(b0), jnp.asarray(b1)),
-        "max": jnp.float32(2.5),
-        "mean": jnp.asarray([0.1, 0.2, 0.3], jnp.float32),
-        "rotation": jnp.float32(0.5),
-    }
-    env_cfg, (wstack, ebias, econst) = pack_env_mlp(config, params)
-    P, E_, layers, log_tm = env_cfg
-    assert P == 128 and E_ == E and log_tm
-    assert layers == ((4 * E, 16, True, False), (16 + 4 * E, 3, False, True))
-    assert wstack.shape == (2 * P, P) and wstack.dtype == jnp.bfloat16
-    w = np.asarray(wstack, np.float32)
-    np.testing.assert_allclose(w[0:16, 0:4 * E], k0.T, rtol=8e-3, atol=8e-3)
-    np.testing.assert_allclose(w[P:P + 3, 0:16 + 4 * E], k1.T, rtol=8e-3,
-                               atol=8e-3)
-    # Biases exact (f32, not folded through the bf16 matmul):
-    be = np.asarray(ebias)
-    np.testing.assert_array_equal(be[0:16, 0], b0)
-    np.testing.assert_array_equal(be[0:3, 1], b1)
-    e = np.asarray(econst)
-    assert e[0, 0] == np.float32(0.5) and e[0, 1] == np.float32(2.5)
-    np.testing.assert_allclose(e[0, 2:5], [0.1, 0.2, 0.3])
-
-    # Hand-apply the packed form (f32) on a feature vector and compare
-    # to the unpacked math:
-    feats = rng.normal(size=(4 * E,)).astype(np.float32)
-    x = np.zeros(P, np.float32)
-    x[:4 * E] = feats
-    wf = np.zeros_like(w)
-    # rebuild f32 wstack without the bf16 cast for the check:
-    wf[0:16, 0:4 * E] = k0.T
-    wf[P:P + 3, 0:16 + 4 * E] = k1.T
-    y = np.maximum(wf[0:P] @ x + be[:, 0], 0.0)
-    x2 = np.zeros(P, np.float32)
-    x2[:16] = y[:16]
-    x2[16:16 + 4 * E] = feats
-    out = (wf[P:2 * P] @ x2 + be[:, 1])[:3]
-    want = np.maximum(feats @ k0 + b0, 0.0)
-    want = np.concatenate([want, feats]) @ k1 + b1
-    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)

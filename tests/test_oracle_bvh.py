@@ -1,8 +1,8 @@
 """BVH-accelerated f64 oracle: exactness + large-scene AOV parity.
 
-VERDICT r2 #6: the brute-force oracle is O(R*P) and unusable past ~10k
-prims, so big-scene (HBM-path) correctness previously rested on
-kernel-vs-kernel agreement only. The BVH oracle must (a) agree EXACTLY
+The brute-force oracle is O(R*P) and unusable past ~10k prims, so
+without it big-scene correctness would rest on intersector-vs-intersector
+agreement only. The BVH oracle must (a) agree EXACTLY
 with the brute-force oracle (same f64 prim tests, the BVH only skips
 provable misses), and (b) make independent AOV verification practical at
 100k+ triangles against the production intersectors."""
@@ -45,15 +45,14 @@ def test_bvh_oracle_matches_brute_force_exactly(cornell_scene):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("method", ["dense", "pallas-hbm"])
+@pytest.mark.parametrize("method", ["dense", "bvh"])
 def test_large_scene_aov_parity_vs_oracle(method):
     """106k-tri heightfield: the production intersectors' primary-hit
     AOVs must match the independent BVH oracle — the reference's
     Embree-check methodology at a scale the brute-force oracle cannot
-    reach (ref trace.cpp:528-540). 'pallas-hbm' runs the streamed super
-    walk (interpret mode here), so the >VMEM path is checked against an
-    independent algorithm, not just kernel-vs-kernel agreement
-    (VERDICT r2 weak #5)."""
+    reach (ref trace.cpp:528-540), so the large-scene path is checked
+    against an independent algorithm, not just intersector-vs-intersector
+    agreement."""
     from ipu_ray_lib_tpu.ops.traversal import scene_intersect_with_normal
     from ipu_ray_lib_tpu.scene.build import build_scene
     from ipu_ray_lib_tpu.scene.builtin import make_stress_scene

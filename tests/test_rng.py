@@ -1,5 +1,4 @@
-"""Statistical tests for the counter-based RNG (ops/rng.py) and its
-in-kernel int32 twin (ops/pallas/megakernel.py).
+"""Statistical tests for the counter-based RNG (ops/rng.py).
 
 The reference leans on the IPU's hardware RNG whose contract is
 "independent uniforms per worker"; these tests pin the same contract for
@@ -76,44 +75,3 @@ def test_box_muller_normality():
         q = np.quantile(g, [0.025, 0.975])
         assert abs(q[0] + 1.9600) < 0.02
         assert abs(q[1] - 1.9600) < 0.02
-
-
-def test_megakernel_rng_matches_ops_rng():
-    """The in-kernel int32 hash (logical shifts + wrapping int32 muls)
-    must produce bit-identical streams to ops/rng.py's uint32 version —
-    the megakernel and the XLA-loop integrator share path statistics."""
-    from ipu_ray_lib_tpu.ops.pallas.megakernel import _normal2, _u01
-
-    pids_u = jnp.arange(4096, dtype=jnp.uint32)
-    pids_i = jnp.arange(4096, dtype=jnp.int32).reshape(1, -1)
-    for bounce in (0, 7, 123456):
-        for dim in (0, 1, 2, 3):
-            a = np.asarray(uniform01(pids_u, jnp.uint32(bounce),
-                                     jnp.uint32(dim)))
-            b = np.asarray(_u01(pids_i, jnp.full_like(pids_i, bounce),
-                                jnp.full_like(pids_i, dim)))[0]
-            assert (a == b).all(), (bounce, dim)
-    a1, a2 = normal2(pids_u, jnp.uint32(0xCA3))
-    b1, b2 = _normal2(pids_i, jnp.full_like(pids_i, 0xCA3))
-    assert np.allclose(np.asarray(a1), np.asarray(b1)[0], atol=1e-6)
-    assert np.allclose(np.asarray(a2), np.asarray(b2)[0], atol=1e-6)
-
-
-def test_kernel_atan2_acos_polynomials():
-    """The megakernel's polynomial atan2/arccos (used for equirect env
-    UVs) must be accurate to ~1e-5 rad over the full circle."""
-    import jax.numpy as jnp
-
-    from ipu_ray_lib_tpu.ops.pallas.megakernel import _acos, _atan2
-
-    rng = np.random.default_rng(7)
-    ang = rng.uniform(-np.pi, np.pi, 4096).astype(np.float32)
-    r = rng.uniform(0.1, 10.0, 4096).astype(np.float32)
-    y, x = r * np.sin(ang), r * np.cos(ang)
-    got = np.asarray(_atan2(jnp.asarray(y), jnp.asarray(x)))
-    want = np.arctan2(y, x)
-    assert np.abs(got - want).max() < 3e-5
-
-    c = rng.uniform(-1.0, 1.0, 4096).astype(np.float32)
-    got = np.asarray(_acos(jnp.asarray(c)))
-    assert np.abs(got - np.arccos(c)).max() < 5e-5

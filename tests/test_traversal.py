@@ -1,6 +1,6 @@
 """Traversal correctness: threaded-BVH closest hit vs brute-force oracle.
 
-The TPU analogue of the reference's AOV parity methodology
+The reference's AOV parity methodology
 (LITERATE_TEST.ipynb: compare custom BVH render vs Embree)."""
 
 import numpy as np
@@ -95,17 +95,11 @@ def test_occlusion_matches_oracle(cornell_scene, cornell_built):
     assert agree.mean() > 0.995
 
 
-def test_pallas_interpolated_normals_match_dense():
-    """Vertex-normal interpolation through the one-hot w2/w3 dots (the
-    rows-0-2-only contract, PROGRESS.md finding 30) must reproduce the
-    dense path's barycentric interpolation."""
-    import numpy as np
-
-    from ipu_ray_lib_tpu.ops.traversal import (
-        pallas_path_intersect,
-        scene_intersect_with_normal,
-    )
-    from ipu_ray_lib_tpu.scene.build import build_scene
+def test_bvh_interpolated_normals_match_dense():
+    """Vertex-normal interpolation must give the same shading normals
+    through both intersectors (same hit_normal recomputation, different
+    closest-hit search)."""
+    from ipu_ray_lib_tpu.ops.traversal import scene_intersect_with_normal
     from ipu_ray_lib_tpu.scene.types import HostMesh, Material, SceneDescription
 
     # A 2-triangle quad at z=-5 with deliberately tilted vertex normals so
@@ -122,7 +116,7 @@ def test_pallas_interpolated_normals_match_dense():
     scene.mat_ids = [0]
     scene.validate()
     arrays, params, _ = build_scene(scene, image_width=8, image_height=8,
-                                    samples_per_pixel=1, intersector="pallas")
+                                    samples_per_pixel=1, intersector="dense")
 
     rng = np.random.default_rng(5)
     R = 256
@@ -134,14 +128,14 @@ def test_pallas_interpolated_normals_match_dense():
     tmin = jnp.zeros(R)
     tmax = jnp.full(R, jnp.inf)
 
-    res = pallas_path_intersect(arrays, o_j, d_j, tmin, tmax)
-    hit, hn = scene_intersect_with_normal(arrays, o_j, d_j, tmin, tmax,
-                                          "dense")
-    m = np.asarray(res["found"]) & np.asarray(hit.found)
+    hb, nb = scene_intersect_with_normal(arrays, o_j, d_j, tmin, tmax, "bvh")
+    hd, nd = scene_intersect_with_normal(arrays, o_j, d_j, tmin, tmax,
+                                         "dense")
+    m = np.asarray(hb.found) & np.asarray(hd.found)
     assert m.sum() > 200
-    n_p = np.asarray(res["normal"])[m]
-    n_d = np.asarray(hn)[m]
+    n_b = np.asarray(nb)[m]
+    n_d = np.asarray(nd)[m]
     # Interpolated normals really vary across the quad:
-    assert n_p.std(axis=0).max() > 0.05
-    dots = np.sum(n_p * n_d, axis=-1)
+    assert n_b.std(axis=0).max() > 0.05
+    dots = np.sum(n_b * n_d, axis=-1)
     assert dots.min() > 0.9999, float(dots.min())

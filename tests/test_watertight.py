@@ -3,13 +3,13 @@
 The reference's hot-path contract is the PBRT watertight triangle test
 (ref: src/Mesh.cpp:8-104, README.md:109-120): a ray through a shared
 mesh edge or vertex must hit at least one incident triangle — never fall
-through the crack. The TPU dense test keeps the plane+barycentric
+through the crack. The dense test keeps the plane+barycentric
 formulation but widens acceptance by a rigorous rounding bound
 (utils/constants.py WATERTIGHT_EPS_SCALE), which makes cracks impossible
 by construction. These tests aim thousands of rays exactly at shared
 edges, edge midpoints and vertices of tessellated surfaces and assert
-zero leaks on EVERY intersector (dense/bvh/pallas/pallas-hbm and both
-megakernel dense-test copies)."""
+zero leaks on every intersector (dense and bvh), both for direct
+closest-hit queries and through the streaming integrator."""
 
 import dataclasses
 
@@ -86,12 +86,11 @@ def crack_setup():
     return arrays, params, jnp.asarray(o), jnp.asarray(d.astype(np.float32))
 
 
-@pytest.mark.parametrize("intersector", ["dense", "bvh", "pallas",
-                                         "pallas-hbm"])
+@pytest.mark.parametrize("intersector", ["dense", "bvh"])
 def test_no_cracks_on_shared_edges(crack_setup, intersector):
     """Every ray aimed exactly at a shared edge/vertex must hit: a miss
-    is a crack. Covers ops/dense.py, ops/traversal.py (PBRT watertight),
-    ops/pallas/intersect_kernel.py and ops/pallas/intersect_hbm.py."""
+    is a crack. Covers ops/dense.py and ops/traversal.py (PBRT
+    watertight)."""
     from ipu_ray_lib_tpu.ops.traversal import scene_intersect_with_normal
 
     arrays, params, o, d = crack_setup
@@ -110,8 +109,8 @@ def test_no_cracks_on_shared_edges(crack_setup, intersector):
 def _pixel_vertex_scene(size=32):
     """A tessellation whose VERTICES sit exactly on every pixel-centre
     camera ray (AA off): each primary ray of a render then passes through
-    a mesh vertex — the adversarial worst case for the in-kernel
-    (megakernel) dense-test copies, which camera-drive their own rays."""
+    a mesh vertex — the adversarial worst case for the integrator, which
+    generates its own camera rays."""
     from ipu_ray_lib_tpu.scene.types import (Camera, HostMesh, Material,
                                              MaterialType, SceneDescription)
 
@@ -147,16 +146,11 @@ def _pixel_vertex_scene(size=32):
     return scene
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(hbm=True),
-                                dict(walk_mxu=True)])
-def test_megakernel_no_cracks_at_vertices(kw):
-    """Render the pixel-aligned vertex grid through the megakernel: every
-    interior pixel ray passes through a shared mesh vertex. Any black
-    pixel inside the grid = a crack in the in-kernel dense test (VMEM or
-    HBM copy)."""
-    import functools
-
-    from ipu_ray_lib_tpu.ops.pallas import megakernel as MK
+@pytest.mark.parametrize("intersector", ["dense", "bvh"])
+def test_integrator_no_cracks_at_vertices(intersector):
+    """Render the pixel-aligned vertex grid through the streaming
+    integrator: every interior pixel ray passes through a shared mesh
+    vertex. Any black pixel inside the grid = a crack."""
     from ipu_ray_lib_tpu.render import streaming as S
     from ipu_ray_lib_tpu.scene.build import build_scene
 
@@ -164,17 +158,12 @@ def test_megakernel_no_cracks_at_vertices(kw):
     scene = _pixel_vertex_scene(size)
     arrays, params, _ = build_scene(
         scene, image_width=size, image_height=size, samples_per_pixel=1,
-        max_path_length=2, intersector="pallas")
+        max_path_length=2, intersector=intersector)
     params = dataclasses.replace(params, anti_alias_scale=0.0)
 
-    orig = MK.megakernel_path_trace
-    MK.megakernel_path_trace = functools.partial(orig, **kw) if kw else orig
-    try:
-        img, done = S.render_streaming(arrays, params, spp=1)
-    finally:
-        MK.megakernel_path_trace = orig
+    img, done = S.render_streaming(arrays, params, spp=1)
     assert done == size * size
     # Interior pixels (border rays graze the mesh boundary edge-on):
     inner = img[1:-1, 1:-1]
     dark = (inner.sum(axis=-1) <= 0).sum()
-    assert dark == 0, f"{dark} cracked pixels at mesh vertices {kw}"
+    assert dark == 0, f"{dark} cracked pixels at mesh vertices ({intersector})"

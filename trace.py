@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""trace.py — render a scene on TPU, with CPU-twin and oracle verification.
+"""trace.py — render a scene on the GPU, with CPU-twin and oracle verification.
 
-The application layer of ipu_ray_lib_tpu: the TPU-native counterpart of the
+The application layer of ipu_ray_lib_tpu: the counterpart of the
 reference's ``trace`` CLI (ref: trace.cpp:338-424 for the flag set,
 426-544 for the run/verify flow). Renders the scene with:
 
   * the brute-force numpy oracle (the "Embree role" reference image),
   * the same JAX code on the CPU backend (the CPU-twin debug path), and
-  * the TPU renderer,
+  * the device renderer (the GPU; the CPU only when ``JAX_PLATFORMS=cpu``),
 
 then writes EXR AOVs and reports cross-renderer MSE.
 """
@@ -23,10 +23,10 @@ import numpy as np
 
 
 def add_options(p: argparse.ArgumentParser) -> None:
-    # Flag set mirrors ref trace.cpp:338-378 (names adapted TPU-ward).
+    # Flag set mirrors ref trace.cpp:338-378.
     p.add_argument("-o", "--outprefix", default="out", help="Output filename prefix.")
     p.add_argument("--devices", type=int, default=0,
-                   help="Number of TPU chips to shard rays over (0 = all available).")
+                   help="Number of devices to shard rays over (0 = all available).")
     p.add_argument("--chunk-size", type=int, default=1 << 16,
                    help="Rays per device chunk (static shape; analogue of rays-per-worker).")
     p.add_argument("-w", "--width", type=int, default=768, help="Image width.")
@@ -56,18 +56,18 @@ def add_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--samples", type=int, default=256, help="Samples per pixel.")
     p.add_argument("--seed", type=int, default=1442)
     p.add_argument("--max-nif-batch-size", type=int, default=0,
-                   help="Kept for interface parity; NIF batches are fused into the "
-                        "wavefront on TPU, no serialisation needed.")
-    p.add_argument("--tpu-only", action="store_true",
+                   help="Kept for interface parity; NIF batches are evaluated "
+                        "inside the wavefront, no serialisation needed.")
+    p.add_argument("--device-only", action="store_true",
                    help="Skip the CPU/oracle reference renders.")
     p.add_argument("--progressive", action="store_true",
                    help="Report partial results chunk-by-chunk while rendering "
                         "(RayCallback analogue).")
     p.add_argument("--intersector", default="auto",
-                   choices=["auto", "bvh", "dense", "pallas", "pallas-hbm"],
-                   help="Closest-hit engine: threaded-BVH wavefront, dense MXU, "
-                        "the blocked Pallas kernel, or the HBM-streamed kernel "
-                        "for scenes beyond VMEM (auto picks per scene/backend).")
+                   choices=["auto", "bvh", "dense"],
+                   help="Closest-hit engine: threaded-BVH wavefront or dense "
+                        "brute force over triangle blocks (auto picks by "
+                        "primitive count).")
     p.add_argument("--compile-only", action="store_true",
                    help="AOT-compile the render program for this scene/config "
                         "(with compile-progress heartbeat) and exit without "
@@ -130,8 +130,23 @@ def build_scene_description(args):
     return scene
 
 
+def scene_build_kwargs(args) -> dict:
+    """build_scene keyword arguments for the parsed CLI flags."""
+    return dict(
+        image_width=args.width,
+        image_height=args.height,
+        window=parse_crop(args.crop),
+        anti_alias_scale=args.anti_alias,
+        max_path_length=args.max_path_length,
+        roulette_start_depth=args.roulette_start_depth,
+        samples_per_pixel=args.samples,
+        rng_seed=args.seed,
+        intersector=args.intersector,
+    )
+
+
 def _render_sharded(arrays, params, n_dev, env_fn, env_params):
-    """Full-frame data-parallel path render (ray axis sharded over chips)."""
+    """Full-frame data-parallel path render (ray axis sharded over devices)."""
     import jax
     import jax.numpy as jnp
 
@@ -176,8 +191,20 @@ def main(argv=None) -> int:
 
     import jax
 
-    from ipu_ray_lib_tpu.runtime.config import install_compile_event_logging
+    from ipu_ray_lib_tpu.runtime.config import (
+        NoGpuError, install_compile_event_logging, select_backend,
+        setup_compilation_cache)
 
+    # The GPU, or the CPU only when JAX_PLATFORMS=cpu asks for it:
+    try:
+        select_backend()
+    except NoGpuError as e:
+        log.error("%s", e)
+        return 2
+    dev0 = jax.devices()[0]
+    log.info("Rendering on platform '%s' (%s), %d device(s); compile cache %s",
+             dev0.platform, dev0.device_kind, len(jax.devices()),
+             setup_compilation_cache())
     # Compile-progress observability (ref CallbackFilter role): every XLA
     # backend compile reports its duration; slow ones log at info.
     install_compile_event_logging()
@@ -189,18 +216,7 @@ def main(argv=None) -> int:
     from ipu_ray_lib_tpu.scene.build import build_scene
     from ipu_ray_lib_tpu.utils.image import mse, write_image
 
-    window = parse_crop(args.crop)
-    build_kwargs = dict(
-        image_width=args.width,
-        image_height=args.height,
-        window=window,
-        anti_alias_scale=args.anti_alias,
-        max_path_length=args.max_path_length,
-        roulette_start_depth=args.roulette_start_depth,
-        samples_per_pixel=args.samples,
-        rng_seed=args.seed,
-        intersector=args.intersector,
-    )
+    build_kwargs = scene_build_kwargs(args)
 
     cache_path = None
     if args.scene_cache:
@@ -295,7 +311,7 @@ def main(argv=None) -> int:
 
     images = {}
 
-    if not args.tpu_only:
+    if not args.device_only:
         # Oracle reference (the Embree role):
         if args.render_mode == "shadow-trace":
             rows, cols = pixel_grid(
@@ -345,7 +361,7 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             log.warning("CPU twin render unavailable: %s", e)
 
-    # TPU render:
+    # Device render:
     cb = None
     if args.progressive:
         def cb(ci, rgb_chunk):
@@ -378,15 +394,15 @@ def main(argv=None) -> int:
         "path-samples" if spp > 1 else "rays", dt,
     )
     img = make_aov_image(out, vis, mat_id, mat_albedo)
-    images["tpu"] = img
-    write_image(prefix + "tpu.exr", img)
+    images["device"] = img
+    write_image(prefix + "device.exr", img)
     if args.render_mode == "shadow-trace":
         log.info("Hit count: %d", out.hit_count)
 
     if "cpu" in images:
-        log.info("MSE TPU vs CPU-twin: %.6g", mse(images["tpu"], images["cpu"]))
+        log.info("MSE device vs CPU-twin: %.6g", mse(images["device"], images["cpu"]))
     if "oracle" in images:
-        log.info("MSE TPU vs oracle: %.6g", mse(images["tpu"], images["oracle"]))
+        log.info("MSE device vs oracle: %.6g", mse(images["device"], images["oracle"]))
 
     log.info("Done.")
     return 0
